@@ -3,9 +3,9 @@
 The reference's asynchronous mode overlaps self-play and learning in
 separate PROCESSES (Gamers play_forever while the learner trains on a
 timer, ref ``Training/AlphaZero.py:389-404``).  This framework's async
-mode is phase-alternating on ONE device.  On a single TPU core XLA
-programs execute one at a time, so "true" overlap cannot reclaim device
-time — it can only hide HOST latency (keeping the device queue fed).
+mode is phase-alternating on ONE device.  One process's XLA programs
+run one at a time on its device (one stream), so "true" overlap cannot
+reclaim device time — it can only hide HOST latency (keeping the device queue fed).
 This harness quantifies exactly that:
 
 1. ``loop_rate``: MCTS-backed env-steps/s of the self-play phase inside
@@ -47,17 +47,17 @@ import jax
 def main():
     import tempfile
 
-    from nuzero_tpu.config.schemas import (
+    from nuzero.config.schemas import (
         LearningConfig,
         RunningConfig,
         SavingConfig,
         TestingFrequencyConfig,
         TrainingConfig,
     )
-    from nuzero_tpu.envs import TicTacToe
-    from nuzero_tpu.networks import MLPNetwork, NetworkManager
-    from nuzero_tpu.search import SearchParams
-    from nuzero_tpu.training import AlphaZero
+    from nuzero.envs import TicTacToe
+    from nuzero.networks import MLPNetwork, NetworkManager
+    from nuzero.search import SearchParams
+    from nuzero.training import AlphaZero
 
     steps = int(os.environ.get("OVB_STEPS", 30))
     actors = int(os.environ.get("OVB_ACTORS", 1024))
@@ -99,7 +99,7 @@ def main():
     step_t = sum(r["step_time_s"] for r in tail)
 
     # Pure device loop at the same config (bench.py methodology).
-    from nuzero_tpu.training.selfplay import init_selfplay, make_selfplay_step
+    from nuzero.training.selfplay import init_selfplay, make_selfplay_step
 
     params = SearchParams(num_simulations=sims)
 

@@ -18,8 +18,8 @@ Usage:
     SIMS_FILTERS=256 SIMS_DTYPE=bfloat16 python benchmarks/sims_scaling_bench.py
     SIMS_LIST=30,300 SIMS_BATCH=256 ...                # subset / smaller B
 
-HBM note: at 800 sims the carried trees are [B, 1604, A]-shaped; B=512
-exceeds one v5e's 16 GB (measured 20.9 GB) — use SIMS_BATCH=256 there.
+Memory note: at 800 sims the carried trees are [B, 1604, A]-shaped; check
+``memory_analysis()`` before running B=512 (SIMS_BATCH lowers it).
 
 Prints one JSON line per budget: rate, per-sim ms, tree capacity.
 """
@@ -45,10 +45,10 @@ import jax.numpy as jnp
 
 
 def main():
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
-    from nuzero_tpu.networks import NetworkManager, RecurrentNet
-    from nuzero_tpu.search import SearchParams
-    from nuzero_tpu.training.selfplay import init_selfplay, make_selfplay_step
+    from nuzero.envs.scs import SCSGame, load_scenario
+    from nuzero.networks import NetworkManager, RecurrentNet
+    from nuzero.search import SearchParams
+    from nuzero.training.selfplay import init_selfplay, make_selfplay_step
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sims_list = [

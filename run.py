@@ -34,8 +34,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# Persistent XLA compile cache (first compile of the self-play program can
-# take minutes on remote TPU backends; identical re-runs hit the cache).
+# Persistent XLA compile cache, kept where JAX_COMPILATION_CACHE_DIR says
+# (default: .jax_cache in the repo); the first compile of the self-play
+# program can take minutes, identical re-runs hit the cache.
 os.environ.setdefault(
     "JAX_COMPILATION_CACHE_DIR", os.path.join(REPO, ".jax_cache")
 )
@@ -43,13 +44,13 @@ RUNS = os.path.join(REPO, "runs")
 
 
 def _ttt_env():
-    from nuzero_tpu.envs import TicTacToe
+    from nuzero.envs import TicTacToe
 
     return TicTacToe()
 
 
 def _scs_env(scenario_file: str, seed: int = 42, randomize_vp: bool = False):
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     scenario = load_scenario(
         os.path.join(REPO, "configs", "scenarios", scenario_file), seed=seed
@@ -66,11 +67,11 @@ def _managers(env, arch: str, hex: bool = True, filters: int = None,
               net_dtype: str = None):
     """``filters``/``net_dtype`` default from --filters/--net-dtype (the
     reference's flagship presets run 256-filter trunks, ref Run.py:148;
-    bfloat16 runs the trunk at the MXU's fast rate with f32 master
+    bfloat16 runs the trunk's convs on bf16 operands with f32 master
     params)."""
     import jax.numpy as jnp
 
-    from nuzero_tpu.networks import (
+    from nuzero.networks import (
         ConvNet,
         MLPNetwork,
         NetworkManager,
@@ -121,7 +122,7 @@ def _maybe_init_distributed():
     if os.environ.get("JAX_COORDINATOR") or (
         int(os.environ.get("SLURM_NTASKS", "1") or 1) > 1
     ):
-        from nuzero_tpu.parallel.distributed import initialize_distributed
+        from nuzero.parallel.distributed import initialize_distributed
 
         initialize_distributed()
         import jax
@@ -136,9 +137,9 @@ def _train(env, manager, train_cfg_file, search_cfg_file, name=None,
            state_set=None, meta=None):
     import jax
 
-    from nuzero_tpu.config import load_search_config, load_training_config
-    from nuzero_tpu.parallel import make_mesh
-    from nuzero_tpu.training import AlphaZero
+    from nuzero.config import load_search_config, load_training_config
+    from nuzero.parallel import make_mesh
+    from nuzero.training import AlphaZero
 
     cfg = load_training_config(os.path.join(REPO, "configs", "training", train_cfg_file))
     search = load_search_config(os.path.join(REPO, "configs", "search", search_cfg_file))
@@ -167,7 +168,7 @@ def _train(env, manager, train_cfg_file, search_cfg_file, name=None,
         )
         if meta:
             # Enough to rebuild env+network on resume (wizard continue).
-            from nuzero_tpu.config.run_meta import save_run_meta
+            from nuzero.config.run_meta import save_run_meta
 
             save_run_meta(run_dir, **meta)
     az = AlphaZero(
@@ -206,7 +207,7 @@ def training_preset(idx: int, name, train_cfg=None, search_cfg=None):
                       num_filters=_NET_OPTS.get("filters", 64)),
         )
     elif idx == 2:
-        from nuzero_tpu.evaluation import mirrored_state_set
+        from nuzero.evaluation import mirrored_state_set
 
         env = _scs_env("open_field_5.yml")
         # Value-probe state set as in the working reference preset
@@ -223,7 +224,7 @@ def training_preset(idx: int, name, train_cfg=None, search_cfg=None):
                       num_filters=_NET_OPTS.get("filters", 64)),
         )
     elif idx == 3:
-        from nuzero_tpu.evaluation import solo_state_set
+        from nuzero.evaluation import solo_state_set
 
         # Per-game VP randomization = the reference's training
         # distribution (each self-play game reloads the Randomized
@@ -249,15 +250,15 @@ def training_preset(idx: int, name, train_cfg=None, search_cfg=None):
 def testing_preset(idx: int, name):
     import jax
 
-    from nuzero_tpu.evaluation import (
+    from nuzero.evaluation import (
         GoalRushAgent,
         MctsAgent,
         PolicyAgent,
         RandomAgent,
         TestManager,
     )
-    from nuzero_tpu.search import SearchParams
-    from nuzero_tpu.utils.checkpoint import restore_checkpoint
+    from nuzero.search import SearchParams
+    from nuzero.utils.checkpoint import restore_checkpoint
 
     if idx == 0:
         env = _ttt_env()
@@ -342,7 +343,7 @@ def testing_preset(idx: int, name):
                 f,
                 indent=1,
             )
-        from nuzero_tpu.utils.plots import plot_iteration_sweep
+        from nuzero.utils.plots import plot_iteration_sweep
 
         out = plot_iteration_sweep(
             results,
@@ -351,7 +352,8 @@ def testing_preset(idx: int, name):
             "recurrent iterations",
             seat=1,
         )
-        print(f"sweep plot written to {out}")
+        if out:
+            print(f"sweep plot written to {out}")
     elif idx == 3:
         # Board-size transfer (ref Plots/sizes experiments,
         # Plots/PlotMaker.py:20-35): the solo-scout net trained on 5x5 is
@@ -363,7 +365,7 @@ def testing_preset(idx: int, name):
         import json
         import math
 
-        from nuzero_tpu.envs.scs import SCSGame, load_scenario
+        from nuzero.envs.scs import SCSGame, load_scenario
 
         run_name = name or "scs_solo_rvp_r4"
         run_dir = os.path.join(RUNS, run_name)
@@ -440,7 +442,7 @@ def testing_preset(idx: int, name):
                 f,
                 indent=1,
             )
-        from nuzero_tpu.utils.plots import plot_size_sweep
+        from nuzero.utils.plots import plot_size_sweep
 
         out = plot_size_sweep(
             curves,
@@ -449,7 +451,8 @@ def testing_preset(idx: int, name):
             seat=1,
             train_size=base_size,
         )
-        print(f"size-sweep plot written to {out}")
+        if out:
+            print(f"size-sweep plot written to {out}")
     else:
         raise SystemExit(f"unknown testing preset {idx}")
 
@@ -465,10 +468,10 @@ def analyse_run(name: str, max_moves: int = 400, auto: bool = False,
 
     import jax
 
-    from nuzero_tpu.config.run_meta import build_from_meta, load_run_meta
-    from nuzero_tpu.evaluation import PolicyAgent
-    from nuzero_tpu.utils.checkpoint import restore_checkpoint
-    from nuzero_tpu.utils.viewer import SCSViewer
+    from nuzero.config.run_meta import build_from_meta, load_run_meta
+    from nuzero.evaluation import PolicyAgent
+    from nuzero.utils.checkpoint import restore_checkpoint
+    from nuzero.utils.viewer import SCSViewer
 
     run_dir = os.path.join(RUNS, name)
     meta = load_run_meta(run_dir)
@@ -507,8 +510,8 @@ def live_goalrush(max_moves: int = 400, fps: int = 8):
     ``SCS_Renderer.py:51-102``)."""
     import jax
 
-    from nuzero_tpu.evaluation import GoalRushAgent, RandomAgent
-    from nuzero_tpu.utils.viewer import SCSViewer
+    from nuzero.evaluation import GoalRushAgent, RandomAgent
+    from nuzero.utils.viewer import SCSViewer
 
     env = _scs_env("solo_scout_5.yml")
     agents = {0: GoalRushAgent(), 1: RandomAgent()}
@@ -544,7 +547,7 @@ def debug_preset(idx: int):
         print("terminal value:", float(s.terminal_value))
     elif idx == 1:
         env = _scs_env("open_field_5.yml")
-        from nuzero_tpu.utils.render import render_scs_ascii
+        from nuzero.utils.render import render_scs_ascii
 
         s = env.init(None)
         rng = np.random.default_rng(0)
@@ -558,9 +561,9 @@ def debug_preset(idx: int):
     elif idx == 2:
         # MCTS tree dump: search the opening TTT position and print the
         # array tree (ref Explorer.print_tree, Search/Explorer.py:216).
-        from nuzero_tpu.search import SearchParams
-        from nuzero_tpu.search.mcts import make_search_fn
-        from nuzero_tpu.search.tree import print_tree
+        from nuzero.search import SearchParams
+        from nuzero.search.mcts import make_search_fn
+        from nuzero.search.tree import print_tree
 
         env = _ttt_env()
         manager = _managers(env, "mlp", hex=False)
@@ -589,7 +592,7 @@ def debug_preset(idx: int):
 
 
 def main():
-    parser = argparse.ArgumentParser(description="NuZero-TPU runner")
+    parser = argparse.ArgumentParser(description="NuZero runner")
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--training-preset", type=int)
     group.add_argument("--testing-preset", type=int)
@@ -665,13 +668,13 @@ def main():
     elif args.debug is not None:
         debug_preset(args.debug)
     elif args.play is not None:
-        from nuzero_tpu.evaluation import MctsAgent, RandomAgent, play_vs_agent
+        from nuzero.evaluation import MctsAgent, RandomAgent, play_vs_agent
 
         env = _ttt_env()
         if args.play == "mcts":
             import jax
 
-            from nuzero_tpu.search import SearchParams
+            from nuzero.search import SearchParams
 
             manager = _managers(env, "mlp", hex=False)
             variables = manager.init(jax.random.key(0))
@@ -681,12 +684,12 @@ def main():
         else:
             agent = RandomAgent()
         if args.cache != "disabled":
-            from nuzero_tpu.utils.caches import create_cache
+            from nuzero.utils.caches import create_cache
 
             agent.set_cache(create_cache(args.cache, 4096))
         play_vs_agent(env, agent, human_player=0)
     elif args.interactive:
-        from nuzero_tpu.interactive import start
+        from nuzero.interactive import start
 
         start()
 

@@ -1,7 +1,10 @@
 #!/bin/bash
-# SLURM template for multi-host NuZero-TPU runs (ref SLURM/slurm-template.sh:
+# SLURM template for multi-host NuZero runs (ref SLURM/slurm-template.sh:
 # the reference started a Ray head + workers; JAX multi-controller instead
 # runs ONE identical task per host and self-organizes via the coordinator).
+# One task per node: that one process drives ALL of the node's GPUs (JAX
+# sees every local card), so never start one process per card — a second
+# JAX process on a card fails for want of the memory the first reserved.
 #
 # Rendered by slurm/launch.py: ${JOB_NAME} ${NUM_NODES} ${PARTITION}
 # ${TIME_LIMIT} ${COMMAND} are substituted.

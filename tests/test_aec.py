@@ -6,8 +6,8 @@ import pytest
 
 pytest.importorskip("pettingzoo")
 
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.envs.aec import AECAdapter
+from nuzero.envs import TicTacToe
+from nuzero.envs.aec import AECAdapter
 
 
 def _random_aec_playout(aec, seed):
@@ -37,7 +37,7 @@ def test_ttt_aec_playout():
 
 
 def test_scs_aec_playout():
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     scn = load_scenario("/root/repo/configs/scenarios/open_field_5.yml", seed=1)
     aec = AECAdapter(SCSGame(scn))

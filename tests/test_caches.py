@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from nuzero_tpu.native import load, xxh64, xxh64_batch
-from nuzero_tpu.utils.caches import DictCache, KeylessCache, create_cache
+from nuzero.native import load, xxh64, xxh64_batch
+from nuzero.utils.caches import DictCache, KeylessCache, create_cache
 
 
 def test_xxh64_known_vectors():

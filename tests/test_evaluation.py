@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.evaluation import (
+from nuzero.envs import TicTacToe
+from nuzero.evaluation import (
     GoalRushAgent,
     MctsAgent,
     PolicyAgent,
     RandomAgent,
     TestManager,
 )
-from nuzero_tpu.networks import MLPNetwork, NetworkManager, RecurrentNet
-from nuzero_tpu.search import SearchParams
+from nuzero.networks import MLPNetwork, NetworkManager, RecurrentNet
+from nuzero.search import SearchParams
 
 ENV = TicTacToe()
 
@@ -53,7 +53,7 @@ def test_agent_cache_serves_host_play(tm):
     """Per-agent inference caches are consulted on host-driven play and
     cleared by the setters (ref Testing YAML Cache section +
     MctsAgent.py:59-65)."""
-    from nuzero_tpu.utils.caches import DictCache
+    from nuzero.utils.caches import DictCache
 
     mgr = NetworkManager(MLPNetwork(out_features=9), ENV.observation_shape)
     variables = mgr.init(jax.random.key(5))
@@ -139,7 +139,7 @@ def test_visual_test(tm):
 
 
 def test_goal_rush_on_scs():
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     scn = load_scenario(
         "/root/reference/Games/SCS/Game_configs/solo_soldier_config_5.yml",
@@ -166,7 +166,7 @@ def test_board_size_sweep():
     import math
     import os
 
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

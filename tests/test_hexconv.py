@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.ops.hexconv import (
+from nuzero.ops.hexconv import (
     hex_conv,
     hex_conv_reference,
     hex_neighbor_offsets,
@@ -26,7 +26,9 @@ def test_neighbor_offsets_match_scs_rules():
     assert even["nw"] == (-1, -1) and odd["nw"] == (0, -1)
 
 
-@pytest.mark.parametrize("rows,cols", [(3, 3), (5, 5), (4, 7), (8, 6), (1, 1)])
+@pytest.mark.parametrize(
+    "rows,cols", [(3, 3), (5, 5), (4, 7), (8, 6), (1, 1), (10, 10), (15, 15)]
+)
 def test_matches_oracle(rows, cols):
     rng = np.random.default_rng(42)
     x = rng.standard_normal((2, 3, rows, cols)).astype(np.float32)
@@ -72,6 +74,50 @@ def test_parity_dependence():
     # odd col... cross-checked fully by the oracle above
 
 
+def _rel_rms(got, want):
+    return float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want**2)))
+
+
+def test_bf16_wide_matches_f32_oracle():
+    """bf16 operands at the flagship width (256 -> 256) pass through as
+    bf16 and accumulate in f32: against the f32 oracle on the same
+    bf16-rounded inputs only the final rounding to bf16 remains (about
+    1e-3 rel-RMS; bf16 accumulation of 1792 products would be ~1e-2)."""
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(rng.standard_normal((2, 5, 5, 256)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((7, 256, 256)) / np.sqrt(1792), jnp.bfloat16)
+    got = hex_conv(x, w, data_format="NHWC", precision=None)
+    assert got.dtype == jnp.bfloat16
+    want = hex_conv_reference(
+        np.asarray(x.astype(jnp.float32)).transpose(0, 3, 1, 2),
+        np.asarray(w.astype(jnp.float32)),
+    )
+    got = np.asarray(got.astype(jnp.float32)).transpose(0, 3, 1, 2)
+    assert _rel_rms(got, want) < 5e-3
+
+
+def test_grad_through_bf16_hexconv_layer():
+    """The dtype policy: a bf16 HexConv layer differentiates (no
+    preferred_element_type=f32 on bf16 operands, which breaks the conv
+    transpose rule), returns bf16, and keeps f32 master weights whose
+    gradient matches the f32 layer's."""
+    from nuzero.networks import HexConv
+
+    x = jnp.asarray(np.random.default_rng(4).standard_normal((2, 5, 5, 8)), jnp.float32)
+    layer16, layer32 = HexConv(16, dtype=jnp.bfloat16), HexConv(16)
+    variables = layer16.init(jax.random.key(0), x)
+    assert variables["params"]["kernel"].dtype == jnp.float32
+    assert layer16.apply(variables, x).dtype == jnp.bfloat16
+
+    def loss(layer):
+        return lambda v: jnp.sum(layer.apply(v, x).astype(jnp.float32) ** 2)
+
+    g16 = jax.grad(loss(layer16))(variables)["params"]["kernel"]
+    g32 = jax.grad(loss(layer32))(variables)["params"]["kernel"]
+    assert g16.dtype == jnp.float32
+    assert _rel_rms(np.asarray(g16), np.asarray(g32)) < 3e-2
+
+
 def test_gradients_flow():
     x = jnp.ones((1, 2, 5, 5))
     w = jnp.ones((7, 2, 3)) * 0.1
@@ -87,7 +133,7 @@ def test_gradients_flow():
 
 @pytest.mark.parametrize("rows,cols", [(5, 5), (4, 7)])
 def test_depthwise_matches_oracle(rows, cols):
-    from nuzero_tpu.ops.hexconv import (
+    from nuzero.ops.hexconv import (
         hex_conv_depthwise,
         hex_conv_depthwise_reference,
     )
@@ -116,7 +162,7 @@ def test_depthwise_matches_oracle(rows, cols):
 def test_depthwise_is_per_channel():
     """Depthwise semantics: output channel i depends only on input channel
     i (the reference's loop of per-channel Conv2d(1,1) layers)."""
-    from nuzero_tpu.ops.hexconv import hex_conv_depthwise
+    from nuzero.ops.hexconv import hex_conv_depthwise
 
     rng = np.random.default_rng(8)
     x = rng.standard_normal((1, 4, 5, 5)).astype(np.float32)

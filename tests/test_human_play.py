@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.evaluation import RandomAgent, play_vs_agent
+from nuzero.envs import TicTacToe
+from nuzero.evaluation import RandomAgent, play_vs_agent
 
 
 class ScriptedInput:

@@ -4,7 +4,7 @@ broken — here it must actually work)."""
 
 import io
 
-from nuzero_tpu.interactive import Wizard
+from nuzero.interactive import Wizard
 
 
 def _scripted(answers):
@@ -17,7 +17,7 @@ def _scripted(answers):
 
 
 def test_new_training_writes_loadable_configs(tmp_path, monkeypatch):
-    import nuzero_tpu.interactive as interactive
+    import nuzero.interactive as interactive
 
     monkeypatch.setattr(interactive, "REPO", str(tmp_path))
     out = io.StringIO()
@@ -28,7 +28,7 @@ def test_new_training_writes_loadable_configs(tmp_path, monkeypatch):
     game, arch, name, train_path, search_path = w.new_training(launch=False)
     assert (game, arch, name) == ("ttt", "mlp", "wiz_test")
 
-    from nuzero_tpu.config import load_search_config, load_training_config
+    from nuzero.config import load_search_config, load_training_config
 
     cfg = load_training_config(train_path)
     assert cfg.network_name == "wiz_test"
@@ -42,7 +42,7 @@ def test_new_training_writes_loadable_configs(tmp_path, monkeypatch):
 
 
 def test_printbar_output():
-    from nuzero_tpu.utils.printbar import PrintBar
+    from nuzero.utils.printbar import PrintBar
 
     out = io.StringIO()
     bar = PrintBar("fill", total=4, width=4, stream=out)
@@ -57,19 +57,19 @@ def test_printbar_output():
 def test_continue_flow_resumes_end_to_end(tmp_path, monkeypatch):
     """The wizard continue flow actually loads the checkpoint and resumes
     training (ref Interactive.py:126-173) — no printed instructions."""
-    import nuzero_tpu.interactive as interactive
+    import nuzero.interactive as interactive
 
     monkeypatch.setattr(interactive, "REPO", str(tmp_path))
 
     import jax
 
-    from nuzero_tpu.config import load_training_config
-    from nuzero_tpu.config.run_meta import save_run_meta
-    from nuzero_tpu.config.yaml_io import save_yaml
-    from nuzero_tpu.envs import TicTacToe
-    from nuzero_tpu.networks import MLPNetwork, NetworkManager
-    from nuzero_tpu.search import SearchParams
-    from nuzero_tpu.training import AlphaZero
+    from nuzero.config import load_training_config
+    from nuzero.config.run_meta import save_run_meta
+    from nuzero.config.yaml_io import save_yaml
+    from nuzero.envs import TicTacToe
+    from nuzero.networks import MLPNetwork, NetworkManager
+    from nuzero.search import SearchParams
+    from nuzero.training import AlphaZero
 
     run_dir = tmp_path / "runs" / "tiny"
     run_dir.mkdir(parents=True)

@@ -76,10 +76,10 @@ def test_committed_run_meets_milestones():
 
 
 def test_ttt_policy_network_learns(tmp_path):
-    from nuzero_tpu.config import load_search_config, load_training_config
-    from nuzero_tpu.envs import TicTacToe
-    from nuzero_tpu.networks import NetworkManager, RecurrentNet
-    from nuzero_tpu.training import AlphaZero
+    from nuzero.config import load_search_config, load_training_config
+    from nuzero.envs import TicTacToe
+    from nuzero.networks import NetworkManager, RecurrentNet
+    from nuzero.training import AlphaZero
 
     cfg = load_training_config(
         os.path.join(REPO, "configs", "training", "ttt_long.yaml")

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.search import SearchParams, make_search_fn
+from nuzero.envs import TicTacToe
+from nuzero.search import SearchParams, make_search_fn
 
 ENV = TicTacToe()
 
@@ -127,8 +127,8 @@ def test_print_tree_dump():
     """Host-side tree dump (ref Explorer.print_tree, Explorer.py:216)."""
     import io
 
-    from nuzero_tpu.networks import MLPNetwork, NetworkManager
-    from nuzero_tpu.search.tree import print_tree
+    from nuzero.networks import MLPNetwork, NetworkManager
+    from nuzero.search.tree import print_tree
 
     env = TicTacToe()
     mgr = NetworkManager(MLPNetwork(out_features=9), env.observation_shape)

@@ -5,7 +5,7 @@ single-process learner (ref ``Training/AlphaZero.py:525-577``,
 ``Training/Gamer.py:17``).  Here the SAME coordinator — early fill,
 sequential/async modes, checkpoints, journal, in-loop eval — runs with the
 self-play batch and replay game axis sharded over an 8-device mesh and
-replicated params (SURVEY §2.8 "TPU-native equivalent").
+replicated params (SURVEY §2.8).
 """
 
 import json
@@ -15,18 +15,18 @@ import jax
 import numpy as np
 import pytest
 
-from nuzero_tpu.config.schemas import (
+from nuzero.config.schemas import (
     LearningConfig,
     RunningConfig,
     SavingConfig,
     TestingFrequencyConfig,
     TrainingConfig,
 )
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.networks import MLPNetwork, NetworkManager
-from nuzero_tpu.parallel import make_mesh, replicate, shard_batch
-from nuzero_tpu.search import SearchParams
-from nuzero_tpu.training import AlphaZero
+from nuzero.envs import TicTacToe
+from nuzero.networks import MLPNetwork, NetworkManager
+from nuzero.parallel import make_mesh, replicate, shard_batch
+from nuzero.search import SearchParams
+from nuzero.training import AlphaZero
 
 from conftest import cpu_devices
 

@@ -5,17 +5,17 @@ game-index bucketing, ``Training/AlphaZero.py:233-235,525-577,846-870``)."""
 import numpy as np
 import pytest
 
-from nuzero_tpu.config.schemas import (
+from nuzero.config.schemas import (
     LearningConfig,
     RecurrentOptions,
     RunningConfig,
     TestingFrequencyConfig,
     TrainingConfig,
 )
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.networks import NetworkManager, RecurrentNet
-from nuzero_tpu.search import SearchParams
-from nuzero_tpu.training import AlphaZero
+from nuzero.envs import TicTacToe
+from nuzero.networks import NetworkManager, RecurrentNet
+from nuzero.search import SearchParams
+from nuzero.training import AlphaZero
 
 
 def test_two_game_types_with_distinct_iterations(tmp_path):
@@ -65,7 +65,7 @@ def test_two_game_types_with_distinct_iterations(tmp_path):
 
 
 def test_mismatched_shapes_rejected():
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     scn = load_scenario(
         "/root/repo/configs/scenarios/open_field_5.yml", seed=1

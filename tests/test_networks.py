@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.networks import (
+from nuzero.networks import (
     ConvNet,
     MLPNetwork,
     NetworkManager,
@@ -130,10 +130,9 @@ def test_manager_inference_parity_shapes():
 
 
 def test_manager_rejects_module_without_recurrent_attr():
-    from flax import linen as nn
+    from nuzero.networks import core as nn
 
     class Bad(nn.Module):
-        @nn.compact
         def __call__(self, x):
             return x, x
 
@@ -163,7 +162,7 @@ def test_discontinued_value_heads(value_head):
 
 
 def test_unknown_value_head_raises():
-    from nuzero_tpu.networks import make_value_head
+    from nuzero.networks import make_value_head
 
     with pytest.raises(ValueError, match="unknown value head"):
         make_value_head("bogus", 16)

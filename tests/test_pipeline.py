@@ -8,17 +8,17 @@ import jax
 import numpy as np
 import pytest
 
-from nuzero_tpu.config.schemas import (
+from nuzero.config.schemas import (
     LearningConfig,
     OptimizerConfig,
     RunningConfig,
     SavingConfig,
     TrainingConfig,
 )
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.networks import MLPNetwork, NetworkManager
-from nuzero_tpu.search import SearchParams
-from nuzero_tpu.training import AlphaZero
+from nuzero.envs import TicTacToe
+from nuzero.networks import MLPNetwork, NetworkManager
+from nuzero.search import SearchParams
+from nuzero.training import AlphaZero
 
 import dataclasses
 
@@ -178,7 +178,7 @@ def test_asynchronous_testing_and_early_testing(tmp_path):
     into the journal under their launch step; early_testing evaluates the
     untrained net at step 0 (ref RemoteTestManager +
     AlphaZero.py:347-349,1268-1280)."""
-    from nuzero_tpu.config.schemas import TestingFrequencyConfig
+    from nuzero.config.schemas import TestingFrequencyConfig
 
     env = TicTacToe()
     mgr = NetworkManager(MLPNetwork(out_features=9), env.observation_shape)
@@ -223,7 +223,7 @@ def test_value_probe_state_set(tmp_path):
     (ref AlphaZero.py:1175-1179)."""
     import jax.numpy as jnp
 
-    from nuzero_tpu.config.schemas import PlottingConfig
+    from nuzero.config.schemas import PlottingConfig
 
     env = TicTacToe()
     mgr = NetworkManager(MLPNetwork(out_features=9), env.observation_shape)
@@ -282,7 +282,7 @@ def test_epochs_method_sweeps_every_position_exactly(tmp_path):
     # Fill the buffer with games whose position count divides the batch
     # size so the sweep is exact (the remainder is dropped otherwise, as in
     # the reference's replay_size // batch_size slicing).
-    from nuzero_tpu.training.replay import FinishedGames
+    from nuzero.training.replay import FinishedGames
 
     B, L, Dd, A = 8, env.max_game_length, az.state_dim, env.num_actions
     fin = FinishedGames(
@@ -320,7 +320,7 @@ def test_weight_stats_and_auto_plots(tmp_path):
     """plot_weights emits the |w| max/min/mean series (ref
     AlphaZero.py:1164-1173) and a fresh run leaves rendered plots in
     run_dir/plots with no manual step."""
-    from nuzero_tpu.config.schemas import PlottingConfig
+    from nuzero.config.schemas import PlottingConfig
 
     env = TicTacToe()
     mgr = NetworkManager(MLPNetwork(out_features=9), env.observation_shape)
@@ -354,7 +354,7 @@ def test_weight_stats_and_auto_plots(tmp_path):
 
 
 def test_plot_loss_off_skips_loss_plots(tmp_path):
-    from nuzero_tpu.utils.plots import plot_training_run
+    from nuzero.utils.plots import plot_training_run
 
     records = [
         {"step": i, "loss/combined": 1.0 / (i + 1), "step_time_s": 0.1}
@@ -364,3 +364,15 @@ def test_plot_loss_off_skips_loss_plots(tmp_path):
         records, str(tmp_path / "p"), include_loss=False
     )
     assert not any("loss" in os.path.basename(p) for p in written)
+
+
+def test_plots_skipped_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """matplotlib is optional: without it the plot set is skipped with one
+    printed line, never silently."""
+    from nuzero.utils import plots
+
+    monkeypatch.setattr(plots, "plt", None)
+    written = plots.plot_training_run([{"step": 1, "loss/combined": 1.0}], str(tmp_path))
+    assert written == []
+    assert "plots skipped" in capsys.readouterr().out
+    assert plots.plot_size_sweep({}, str(tmp_path / "s.png")) is None

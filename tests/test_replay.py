@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nuzero_tpu.training.replay import (
+from nuzero.training.replay import (
     FinishedGames,
     add_games,
     create_buffer,
@@ -144,7 +144,7 @@ def test_sample_without_replacement_unique():
 
 
 def test_epoch_permutation_valid_first_and_complete():
-    from nuzero_tpu.training.replay import epoch_permutation
+    from nuzero.training.replay import epoch_permutation
 
     buf = create_buffer(4, L, D, A)
     buf = add_games(buf, _finished(3, length=5))
@@ -162,7 +162,7 @@ def test_epoch_permutation_valid_first_and_complete():
 
 
 def test_epoch_permutation_game_type_filter():
-    from nuzero_tpu.training.replay import epoch_permutation, gather
+    from nuzero.training.replay import epoch_permutation, gather
 
     buf = create_buffer(4, L, D, A)
     f = _finished(4, length=5)

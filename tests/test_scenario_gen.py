@@ -8,8 +8,8 @@ r_unbalanced/solo_soldier at sizes 4-30).
 import numpy as np
 import pytest
 
-from nuzero_tpu.envs.scs import FAMILIES, SCSGame, make_scenario, scenario_from_dict
-from nuzero_tpu.envs.scs.scenario_gen import generate_scenario, write_scenario_suite
+from nuzero.envs.scs import FAMILIES, SCSGame, make_scenario, scenario_from_dict
+from nuzero.envs.scs.scenario_gen import generate_scenario, write_scenario_suite
 
 
 @pytest.mark.parametrize("family", FAMILIES)

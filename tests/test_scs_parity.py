@@ -48,7 +48,7 @@ def ref_scs(tmp_path_factory):
 def _make_pair(ref_scs, config, seed):
     import jax
 
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     path = os.path.join(CONFIGS, config)
     ref = ref_scs(path, seed=seed)
@@ -153,8 +153,8 @@ def test_selfplay_search_legality_smoke():
     import jax
     import jax.numpy as jnp
 
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
-    from nuzero_tpu.search import SearchParams, make_search_fn
+    from nuzero.envs.scs import SCSGame, load_scenario
+    from nuzero.search import SearchParams, make_search_fn
 
     scenario = load_scenario(
         os.path.join(CONFIGS, "randomized_config_5.yml"), seed=42
@@ -217,7 +217,7 @@ def test_randomize_vp_per_game():
 
     import jax
 
-    from nuzero_tpu.envs.scs import SCSGame, load_scenario
+    from nuzero.envs.scs import SCSGame, load_scenario
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sc = load_scenario(
@@ -245,7 +245,7 @@ def test_randomize_vp_per_game():
     assert np.array_equal(np.asarray(s.vp), np.asarray(env_static.vp))
 
     # GoalRush refuses randomized-VP envs (its Dijkstra field is static).
-    from nuzero_tpu.evaluation import GoalRushAgent
+    from nuzero.evaluation import GoalRushAgent
 
     with pytest.raises(ValueError, match="randomize_vp"):
         GoalRushAgent().policy(env)

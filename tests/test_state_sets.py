@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.envs.scs import SCSGame, load_scenario
-from nuzero_tpu.evaluation.state_sets import (
+from nuzero.envs.scs import SCSGame, load_scenario
+from nuzero.evaluation.state_sets import (
     MIRRORED_SPECS,
     SOLO_SPECS,
     build_state_set,

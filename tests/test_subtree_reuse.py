@@ -3,15 +3,15 @@
 Ref behavior: ``Training/Gamer.py:78-79`` root swap after each move,
 search-config ``keep_subtree`` flag.  Here the reuse re-points the array
 tree's root and frees the dead slots in place — node ids are stable
-(``nuzero_tpu/search/tree.py::reroot``).
+(``nuzero/search/tree.py::reroot``).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.search import SearchParams, make_search_fn, reroot
+from nuzero.envs import TicTacToe
+from nuzero.search import SearchParams, make_search_fn, reroot
 
 ENV = TicTacToe()
 
@@ -141,7 +141,7 @@ def test_carried_search_accumulates_visits():
 
 
 def test_selfplay_with_reuse_runs_and_stays_bounded():
-    from nuzero_tpu.training.selfplay import init_selfplay, make_selfplay_step
+    from nuzero.training.selfplay import init_selfplay, make_selfplay_step
 
     params = SearchParams(num_simulations=16)
     step = jax.jit(make_selfplay_step(ENV, uniform_net, params))
@@ -163,7 +163,7 @@ def test_selfplay_with_reuse_runs_and_stays_bounded():
 def test_selfplay_reuse_matches_fresh_quality():
     """Reuse must not break learning signal plumbing: policy targets stay
     distributions over legal moves."""
-    from nuzero_tpu.training.selfplay import init_selfplay, make_selfplay_step
+    from nuzero.training.selfplay import init_selfplay, make_selfplay_step
 
     params = SearchParams(num_simulations=24)
     step = jax.jit(make_selfplay_step(ENV, uniform_net, params))

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.envs import TicTacToe
+from nuzero.envs import TicTacToe
 
 
 class OracleTTT:

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nuzero_tpu.envs import TicTacToe
-from nuzero_tpu.networks import MLPNetwork, NetworkManager, RecurrentNet
-from nuzero_tpu.search import SearchParams
-from nuzero_tpu.training import Learner, make_selfplay_step
-from nuzero_tpu.training.learner import LearnerConfig
-from nuzero_tpu.training.replay import add_games, create_buffer, sample
-from nuzero_tpu.training.selfplay import init_selfplay
+from nuzero.envs import TicTacToe
+from nuzero.networks import MLPNetwork, NetworkManager, RecurrentNet
+from nuzero.search import SearchParams
+from nuzero.training import Learner, make_selfplay_step
+from nuzero.training.learner import LearnerConfig
+from nuzero.training.replay import add_games, create_buffer, sample
+from nuzero.training.selfplay import init_selfplay
 
 ENV = TicTacToe()
 
@@ -132,7 +132,7 @@ def test_selfplay_to_replay_to_learner_end_to_end():
     tr_step = jax.jit(learner.train_step)
     add = jax.jit(add_games)
 
-    from nuzero_tpu.utils.packing import make_packer
+    from nuzero.utils.packing import make_packer
 
     pack, unpack, D = make_packer(ENV.init(jax.random.key(0)))
     sp = init_selfplay(ENV, 8, jax.random.key(1))

@@ -13,8 +13,8 @@ pygame = pytest.importorskip("pygame")
 
 os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
 
-from nuzero_tpu.envs.scs import SCSGame, make_scenario
-from nuzero_tpu.utils.viewer import SCSViewer, create_counter
+from nuzero.envs.scs import SCSGame, make_scenario
+from nuzero.utils.viewer import SCSViewer, create_counter
 
 
 @pytest.fixture(scope="module")
@@ -81,8 +81,8 @@ def test_analyse_run_cli_headless(tmp_path, monkeypatch):
     import jax
 
     import run as runner
-    from nuzero_tpu.config.run_meta import save_run_meta
-    from nuzero_tpu.utils.checkpoint import save_checkpoint
+    from nuzero.config.run_meta import save_run_meta
+    from nuzero.utils.checkpoint import save_checkpoint
 
     monkeypatch.setattr(runner, "RUNS", str(tmp_path))
     run_dir = tmp_path / "scs_tiny"

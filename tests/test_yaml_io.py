@@ -2,12 +2,12 @@
 
 import os
 
-from nuzero_tpu.config import (
+from nuzero.config import (
     insert_in_all_configs,
     load_training_config,
     remove_from_all_configs,
 )
-from nuzero_tpu.config.yaml_io import load_yaml, save_yaml
+from nuzero.config.yaml_io import load_yaml, save_yaml
 
 
 def _write_two_configs(d):
